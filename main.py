@@ -18,13 +18,13 @@ from __future__ import annotations
 import os
 import sys
 
-from asr_chinese_e2e_tpu.core.config import Config, resolve_config
-from asr_chinese_e2e_tpu.core.registry import get_model
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-from asr_chinese_e2e_tpu.data.vocab import Vocab
-from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
-from asr_chinese_e2e_tpu.train.trainer import Trainer
-from asr_chinese_e2e_tpu.utils.cli import parse_kwargs
+from asr_chinese_e2e.core.config import Config, resolve_config
+from asr_chinese_e2e.core.registry import get_model
+from asr_chinese_e2e.data.batching import BucketedLoader
+from asr_chinese_e2e.data.vocab import Vocab
+from asr_chinese_e2e.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e.train.trainer import Trainer
+from asr_chinese_e2e.utils.cli import parse_kwargs
 
 
 def data_config() -> Config:
@@ -62,7 +62,7 @@ def train(**cli_kwargs):
 
     # multi-host bootstrap first (before any device queries)
     if cli_kwargs.get("num_processes", 0) > 1:
-        from asr_chinese_e2e_tpu.parallel.sharding import initialize_distributed
+        from asr_chinese_e2e.parallel.sharding import initialize_distributed
 
         n_hosts, host_id = initialize_distributed(
             cli_kwargs.pop("coordinator_address", None),
@@ -79,7 +79,7 @@ def train(**cli_kwargs):
 
     # the ONE cfg→FeatureConfig mapping — shared with recognize.py's
     # load_experiment so train and decode can never disagree on features
-    from asr_chinese_e2e_tpu.utils.experiment import feature_config_from
+    from asr_chinese_e2e.utils.experiment import feature_config_from
 
     feat_cfg = feature_config_from(cfg)
     if "input_dim" not in cli_kwargs and cfg.get("frontend", "linear") == "linear":
@@ -134,7 +134,7 @@ def train(**cli_kwargs):
                 f"data axis; running unsharded"
             )
         else:
-            from asr_chinese_e2e_tpu.parallel.sharding import make_mesh
+            from asr_chinese_e2e.parallel.sharding import make_mesh
 
             mesh = make_mesh(
                 data=cfg.mesh_data, model=cfg.mesh_model, seq=mesh_seq
@@ -148,6 +148,7 @@ def train(**cli_kwargs):
         mesh=mesh,
     )
     trainer.train(from_ckpt=cfg.from_ckpt)
+    return trainer
 
 
 def main():

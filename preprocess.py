@@ -14,9 +14,9 @@ from __future__ import annotations
 import os
 import sys
 
-from asr_chinese_e2e_tpu.data.extract import extract_aishell1
-from asr_chinese_e2e_tpu.data.manifest import AiShell1Collector
-from asr_chinese_e2e_tpu.utils.cli import parse_kwargs
+from asr_chinese_e2e.data.extract import extract_aishell1
+from asr_chinese_e2e.data.manifest import AiShell1Collector
+from asr_chinese_e2e.utils.cli import parse_kwargs
 
 
 def extract(archive: str, out: str = "data/") -> str:
@@ -61,9 +61,9 @@ def features(
     import jax.numpy as jnp
     import numpy as np
 
-    from asr_chinese_e2e_tpu.data.batching import load_wav
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-    from asr_chinese_e2e_tpu.data.manifest import read_manifest, write_manifest
+    from asr_chinese_e2e.data.batching import load_wav
+    from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+    from asr_chinese_e2e.data.manifest import read_manifest, write_manifest
 
     cfg = FeatureConfig(n_mels=n_mels, lfr_m=lfr_m, lfr_n=lfr_n)
     records = read_manifest(manifest)

@@ -1,4 +1,4 @@
-"""Beam-search decode throughput on the flagship decoder (real TPU).
+"""Beam-search decode throughput on the flagship decoder (on the GPU).
 
 Measures audio-seconds/s/chip for batched attention beam search (B=64,
 beam 10, max_len 40 — AISHELL-scale) in both cache-reorder modes:
@@ -28,9 +28,9 @@ def main(
 ):
     import jax
 
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-    from asr_chinese_e2e_tpu.decode.beam import beam_search
-    from asr_chinese_e2e_tpu.models.transformer import (
+    from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+    from asr_chinese_e2e.decode.beam import beam_search
+    from asr_chinese_e2e.models.transformer import (
         SpeechTransformer,
         default_config,
     )
@@ -59,7 +59,7 @@ def main(
     jax.block_until_ready(enc_out)
     print(f"enc_out {enc_out.shape} {enc_out.dtype}", file=sys.stderr)
 
-    from asr_chinese_e2e_tpu.decode.joint import joint_beam_search
+    from asr_chinese_e2e.decode.joint import joint_beam_search
 
     for mode in modes.split(","):
         if mode == "joint":
@@ -83,9 +83,9 @@ def main(
             r = search()
             r.materialize()  # BeamResult is lazy now; force per iteration
         wall = (time.perf_counter() - t0) / n_iters
-        tput = batch * seconds / wall
+        rate = batch * seconds / wall
         print(
-            f"[{mode}] {wall * 1e3:.1f} ms/batch = {tput:.0f} audio-s/s/chip "
+            f"[{mode}] {wall * 1e3:.1f} ms/batch = {rate:.0f} audio-s/s/chip "
             f"(best score {r.scores[0, 0]:.2f})"
         )
 
@@ -98,8 +98,8 @@ def corpus(
     mode: str = "joint",
     n_batches: int = 12,
     pipeline_depth: int = 1,
-    corpus_dir: str = "/tmp/asr_bench_corpus",
-    exp_dir: str = "/tmp/asr_bench_decode_exp",
+    corpus_dir: str = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".cache", "asr_bench_corpus"),
+    exp_dir: str = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".cache", "asr_bench_decode_exp"),
 ):
     """CORPUS-level decode wall throughput through the real ``recognize``
     path (manifest -> bucketed chunks -> wav IO -> encode -> search ->
@@ -110,19 +110,19 @@ def corpus(
     the weights."""
     import jax
 
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig
-    from asr_chinese_e2e_tpu.data.vocab import Vocab
-    from asr_chinese_e2e_tpu.models.transformer import (
+    from asr_chinese_e2e.data.features import FeatureConfig
+    from asr_chinese_e2e.data.vocab import Vocab
+    from asr_chinese_e2e.models.transformer import (
         SpeechTransformer,
         default_config,
     )
-    from asr_chinese_e2e_tpu.train.checkpoint import CheckpointManager
-    from asr_chinese_e2e_tpu.train.optimizer import (
+    from asr_chinese_e2e.train.checkpoint import CheckpointManager
+    from asr_chinese_e2e.train.optimizer import (
         default_train_config,
         make_optimizer,
     )
-    from asr_chinese_e2e_tpu.train.train_step import make_step_fns
-    from asr_chinese_e2e_tpu.utils.synth import make_synth_corpus
+    from asr_chinese_e2e.train.train_step import make_step_fns
+    from asr_chinese_e2e.utils.synth import make_synth_corpus
     from recognize import recognize
 
     n_utts = n_batches * batch
@@ -186,10 +186,10 @@ def corpus(
         max_seconds=seconds, pipeline_depth=pipeline_depth,
     )
     wall = time.perf_counter() - t0
-    tput = n_utts * seconds / wall
+    rate = n_utts * seconds / wall
     print(
         f"[corpus mode={mode} depth={pipeline_depth}] {n_utts} utts in "
-        f"{wall:.2f}s = {tput:.0f} audio-s/s/chip wall "
+        f"{wall:.2f}s = {rate:.0f} audio-s/s/chip wall "
         f"({wall / n_batches * 1e3:.0f} ms/batch)"
     )
 
@@ -215,7 +215,7 @@ def sweep(
 
 
 if __name__ == "__main__":
-    from asr_chinese_e2e_tpu.utils.cli import parse_kwargs
+    from asr_chinese_e2e.utils.cli import parse_kwargs
 
     _, kwargs = parse_kwargs(sys.argv[1:])
     if kwargs.pop("corpus", False):

@@ -1,4 +1,4 @@
-"""Streaming recognizer latency on the real TPU (round-3 VERDICT #8).
+"""Streaming recognizer latency on the GPU (round-3 VERDICT #8).
 
 Times the two dispatch paths of ``StreamingRecognizer`` at every duration
 bucket, flagship model shapes (512d/8h/6+6L, vocab 4233, bf16):
@@ -36,14 +36,14 @@ def main(
     if cpu:  # tiny-shape smoke mode (pass e.g. --d_model=64 --num_heads=2)
         jax.config.update("jax_platforms", "cpu")
 
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-    from asr_chinese_e2e_tpu.data.vocab import Vocab
-    from asr_chinese_e2e_tpu.models.transformer import (
+    from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+    from asr_chinese_e2e.data.vocab import Vocab
+    from asr_chinese_e2e.models.transformer import (
         SpeechTransformer,
         default_config,
     )
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
-    from asr_chinese_e2e_tpu.utils.synth import (
+    from asr_chinese_e2e.stream import StreamingRecognizer
+    from asr_chinese_e2e.utils.synth import (
         char_freqs,
         filler_chars,
         synth_wave,
@@ -127,7 +127,7 @@ def main(
     # Same params (causal_encoder/attention_band only change the attention
     # BIAS, not the parameter tree); fixed CMVN; partial cost is one chunk
     # program + host CTC collapse, independent of the prefix length.
-    from asr_chinese_e2e_tpu.core.config import Config
+    from asr_chinese_e2e.core.config import Config
 
     inc_cfg = Config(**dict(cfg.items())).build(
         causal_encoder=True, attention_band=50
@@ -174,7 +174,7 @@ def main(
 
 
 if __name__ == "__main__":
-    from asr_chinese_e2e_tpu.utils.cli import parse_kwargs
+    from asr_chinese_e2e.utils.cli import parse_kwargs
 
     _, kwargs = parse_kwargs(sys.argv[1:])
     main(**kwargs)

@@ -13,15 +13,15 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-from asr_chinese_e2e_tpu.data.features import FeatureConfig
-from asr_chinese_e2e_tpu.data.vocab import Vocab
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer, default_config
-from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
-from asr_chinese_e2e_tpu.train.train_step import make_step_fns
-from asr_chinese_e2e_tpu.utils.synth import make_synth_corpus
+from asr_chinese_e2e.data.batching import BucketedLoader
+from asr_chinese_e2e.data.features import FeatureConfig
+from asr_chinese_e2e.data.vocab import Vocab
+from asr_chinese_e2e.models.transformer import SpeechTransformer, default_config
+from asr_chinese_e2e.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e.train.train_step import make_step_fns
+from asr_chinese_e2e.utils.synth import make_synth_corpus
 
-CORPUS = "/tmp/lr_ab_corpus"
+CORPUS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".cache", "lr_ab_corpus")
 paths = make_synth_corpus(
     CORPUS, n_train=256, n_dev=32, n_test=32,
     n_tone_chars=40, vocab_size=200,

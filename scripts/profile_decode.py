@@ -1,6 +1,6 @@
-"""Micro-profile of the beam decode step on real TPU: times each component
+"""Micro-profile of the beam decode step on the GPU: times each component
 (decode_step forward, top_k prune, bookkeeping gathers) separately to find
-where the ~16 ms/step goes. Run: timeout 1200 python scripts/profile_decode.py
+where the step time goes. Run: timeout 1200 python scripts/profile_decode.py
 """
 import os
 import sys
@@ -29,8 +29,8 @@ def main(batch=64, beam=10, max_len=40, vocab_size=4233, seconds=8.0):
     import jax
     import jax.numpy as jnp
 
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-    from asr_chinese_e2e_tpu.models.transformer import (
+    from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+    from asr_chinese_e2e.models.transformer import (
         SpeechTransformer,
         default_config,
     )

@@ -12,16 +12,16 @@ causal-banded streaming flagship on the synthetic corpus, then drive
      learned),
   3. the partial/final latency table with REAL weights.
 
-Phases (the orchestration phase runs on CPU; each TPU phase is its own
-subprocess — ONE TPU process at a time):
+Phases (the orchestration phase runs on CPU; each GPU phase is its own
+subprocess — ONE GPU process at a time):
 
   python scripts/soak_streaming.py            # all: corpus→train→eval
-  python scripts/soak_streaming.py eval       # TPU eval phase only
+  python scripts/soak_streaming.py eval       # GPU eval phase only
 
 Model: flagship 512d/8h/6+6L bf16, causal_encoder + attention_band 50
-(through the round-5 in-kernel banded fused attention), fixed global CMVN
-(computed from the corpus — the causal normalisation), pre-LN / dropout 0 /
-factor 0.25 (the soak-A recipe BENCH_NOTES r4 proved end-to-end).
+(banded bias through XLA attention), fixed global CMVN (computed from the
+corpus — the causal normalisation), pre-LN / dropout 0 / factor 0.25 (the
+soak-A recipe, proved end-to-end).
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-CORPUS = "/tmp/asr_soak_corpus10k"
-EXP_ROOT = "/tmp/asr_stream_soak"
+CORPUS = os.path.join(REPO, ".cache", "asr_soak_corpus10k")
+EXP_ROOT = os.path.join(REPO, ".cache", "asr_stream_soak")
 EXP_NAME = "stream_flagship"
 BAND = 50
 EPOCHS = int(os.environ.get("SOAK_EPOCHS", 16))
@@ -46,7 +46,7 @@ def log(*a):
 
 
 def gen_corpus():
-    from asr_chinese_e2e_tpu.utils.synth import make_synth_corpus
+    from asr_chinese_e2e.utils.synth import make_synth_corpus
 
     return make_synth_corpus(
         CORPUS, n_train=10000, n_dev=128, n_test=128,
@@ -62,8 +62,8 @@ def cmvn_stats(paths, n=64):
     import jax.numpy as jnp
     import numpy as np
 
-    from asr_chinese_e2e_tpu.data.batching import load_wav
-    from asr_chinese_e2e_tpu.data.features import (
+    from asr_chinese_e2e.data.batching import load_wav
+    from asr_chinese_e2e.data.features import (
         FeatureConfig,
         log_mel_spectrogram,
     )
@@ -89,7 +89,6 @@ def train(paths, mean, std):
         "--exp_root", EXP_ROOT, "--exp_name", EXP_NAME,
         "--num_epoch", str(EPOCHS), "--batch_size", "64",
         "--ctc_weight", "0.3", "--dtype", "bfloat16",
-        "--attn_impl", "fused", "--fbank_impl", "pallas",
         "--spec_augment", "false", "--dropout_rate", "0.0",
         "--norm_type", "pre", "--warm_up", "150", "--noam_factor", "0.25",
         "--causal_encoder", "true", "--attention_band", str(BAND),
@@ -113,14 +112,14 @@ def train(paths, mean, std):
 
 
 def eval_phase(mode: str = "joint"):
-    """TPU phase: incremental vs offline recognizer over the dev set with
+    """GPU phase: incremental vs offline recognizer over the dev set with
     the TRAINED checkpoint + latency with real weights."""
     import numpy as np
 
-    from asr_chinese_e2e_tpu.data.batching import load_wav
-    from asr_chinese_e2e_tpu.decode.cer import corpus_cer
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
-    from asr_chinese_e2e_tpu.utils.experiment import load_experiment
+    from asr_chinese_e2e.data.batching import load_wav
+    from asr_chinese_e2e.decode.cer import corpus_cer
+    from asr_chinese_e2e.stream import StreamingRecognizer
+    from asr_chinese_e2e.utils.experiment import load_experiment
 
     exp = os.path.join(EXP_ROOT, EXP_NAME)
     model, params, cfg, feat_cfg, vocab = load_experiment(
@@ -197,7 +196,7 @@ def main():
         for mode in (sys.argv[2:] or ["joint", "ctc_greedy"]):
             eval_phase(mode)
         return
-    # orchestration: stay OFF the TPU (subprocesses own it, one at a time)
+    # orchestration: stay OFF the GPU (subprocesses own it, one at a time)
     import jax
 
     jax.config.update("jax_platforms", "cpu")

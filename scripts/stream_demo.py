@@ -17,15 +17,15 @@ sys.path.insert(0, REPO)
 
 
 def main(argv):
-    from asr_chinese_e2e_tpu.utils.cli import parse_kwargs
+    from asr_chinese_e2e.utils.cli import parse_kwargs
 
     _, kw = parse_kwargs(argv)
     exp, vocab_path, wav = kw["exp"], kw["vocab"], kw["wav"]
     mode = kw.get("mode", "ctc_greedy")
     chunk_ms = float(kw.get("chunk_ms", 125))
 
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer, wav_chunks
-    from asr_chinese_e2e_tpu.utils.experiment import load_experiment
+    from asr_chinese_e2e.stream import StreamingRecognizer, wav_chunks
+    from asr_chinese_e2e.utils.experiment import load_experiment
 
     model, params, cfg, feat_cfg, vocab = load_experiment(
         exp, vocab_path, which=kw.get("which", "best")

@@ -16,9 +16,9 @@ def main(batch=64, beam=10, max_len=40, vocab_size=4233, seconds=8.0,
     import jax
     import jax.numpy as jnp
 
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-    from asr_chinese_e2e_tpu.decode.beam import beam_search
-    from asr_chinese_e2e_tpu.models.transformer import (
+    from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+    from asr_chinese_e2e.decode.beam import beam_search
+    from asr_chinese_e2e.models.transformer import (
         SpeechTransformer,
         default_config,
     )
@@ -41,7 +41,7 @@ def main(batch=64, beam=10, max_len=40, vocab_size=4233, seconds=8.0,
     jax.block_until_ready(enc_out)
 
     if mode == "joint":
-        from asr_chinese_e2e_tpu.decode.joint import joint_beam_search
+        from asr_chinese_e2e.decode.joint import joint_beam_search
 
         search = lambda: joint_beam_search(
             model, params, enc_out, enc_lens, beam, max_len, ctc_weight=0.3
@@ -53,7 +53,7 @@ def main(batch=64, beam=10, max_len=40, vocab_size=4233, seconds=8.0,
         )
     r = search()
 
-    trace_dir = "/tmp/beam_trace"
+    trace_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".cache", "beam_trace")
     jax.profiler.start_trace(trace_dir, create_perfetto_trace=True)
     r = search()
     del r
@@ -92,7 +92,7 @@ def main(batch=64, beam=10, max_len=40, vocab_size=4233, seconds=8.0,
 
 
 if __name__ == "__main__":
-    from asr_chinese_e2e_tpu.utils.cli import parse_kwargs
+    from asr_chinese_e2e.utils.cli import parse_kwargs
 
     _, kwargs = parse_kwargs(sys.argv[1:])
     main(**kwargs)

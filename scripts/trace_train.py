@@ -14,20 +14,20 @@ import numpy as np
 
 def main(
     seconds=8.0, batch=64, vocab_size=4233, label_len=20, ctc_weight=0.3,
-    dtype="bfloat16", attn_impl="fused", n_steps=3, **model_overrides
+    dtype="bfloat16", attn_impl="xla", n_steps=3, **model_overrides
 ):
     import jax
 
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig
-    from asr_chinese_e2e_tpu.models.transformer import (
+    from asr_chinese_e2e.data.features import FeatureConfig
+    from asr_chinese_e2e.models.transformer import (
         SpeechTransformer,
         default_config,
     )
-    from asr_chinese_e2e_tpu.train.optimizer import (
+    from asr_chinese_e2e.train.optimizer import (
         default_train_config,
         make_optimizer,
     )
-    from asr_chinese_e2e_tpu.train.train_step import make_step_fns
+    from asr_chinese_e2e.train.train_step import make_step_fns
 
     feat_cfg = FeatureConfig()
     cfg = default_config().build(
@@ -59,7 +59,7 @@ def main(
         state, metrics = train_step(state, *args, step_rng)
     jax.block_until_ready(metrics["loss"])
 
-    trace_dir = "/tmp/train_trace"
+    trace_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".cache", "train_trace")
     jax.profiler.start_trace(trace_dir, create_perfetto_trace=True)
     for _ in range(n_steps):
         state, metrics = train_step(state, *args, step_rng)
@@ -95,7 +95,7 @@ def main(
 
 
 if __name__ == "__main__":
-    from asr_chinese_e2e_tpu.utils.cli import parse_kwargs
+    from asr_chinese_e2e.utils.cli import parse_kwargs
 
     _, kwargs = parse_kwargs(sys.argv[1:])
     main(**kwargs)

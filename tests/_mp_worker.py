@@ -20,19 +20,19 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
 
     sys.path.insert(0, wcfg["repo"])
-    from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig
-    from asr_chinese_e2e_tpu.data.vocab import Vocab
-    from asr_chinese_e2e_tpu.models.rnn import BiLSTMCTC, default_ctc_config
-    from asr_chinese_e2e_tpu.parallel.sharding import (
+    from asr_chinese_e2e.data.batching import BucketedLoader
+    from asr_chinese_e2e.data.features import FeatureConfig
+    from asr_chinese_e2e.data.vocab import Vocab
+    from asr_chinese_e2e.models.rnn import BiLSTMCTC, default_ctc_config
+    from asr_chinese_e2e.parallel.sharding import (
         initialize_distributed,
         make_mesh,
     )
-    from asr_chinese_e2e_tpu.train.optimizer import (
+    from asr_chinese_e2e.train.optimizer import (
         default_train_config,
         make_optimizer,
     )
-    from asr_chinese_e2e_tpu.train.trainer import Trainer
+    from asr_chinese_e2e.train.trainer import Trainer
 
     nproc, pid = initialize_distributed(
         coordinator_address=wcfg["coord"],

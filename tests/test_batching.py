@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-from asr_chinese_e2e_tpu.data.manifest import write_manifest
-from asr_chinese_e2e_tpu.data.vocab import Vocab
+from asr_chinese_e2e.data.batching import BucketedLoader
+from asr_chinese_e2e.data.manifest import write_manifest
+from asr_chinese_e2e.data.vocab import Vocab
 
 from tests.test_manifest import write_wav
 

@@ -8,8 +8,8 @@ argmax garbage must not count as insertions.
 
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.vocab import EOS_ID, PAD_ID, Vocab
-from asr_chinese_e2e_tpu.decode.cer import batch_cer_from_ids, calculate_cer
+from asr_chinese_e2e.data.vocab import EOS_ID, PAD_ID, Vocab
+from asr_chinese_e2e.decode.cer import batch_cer_from_ids, calculate_cer
 
 
 def _vocab():

@@ -3,12 +3,13 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from asr_chinese_e2e_tpu.data.features import FeatureConfig
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer
-from asr_chinese_e2e_tpu.train.checkpoint import CheckpointManager
-from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
-from asr_chinese_e2e_tpu.train.train_step import make_step_fns
+from asr_chinese_e2e.data.features import FeatureConfig
+from asr_chinese_e2e.models.transformer import SpeechTransformer
+from asr_chinese_e2e.train.checkpoint import CheckpointManager
+from asr_chinese_e2e.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e.train.train_step import make_step_fns
 
 from tests.test_train_step import VOCAB, make_raw_batch
 from tests.test_transformer import tiny_cfg
@@ -87,8 +88,8 @@ def test_checkpoint_name_parity(tmp_path):
 
 
 class _SlowCkptr:
-    """Slow-filesystem mock: stages to host synchronously (orbax's
-    donation-safety contract), then commits through the real checkpointer
+    """Slow-filesystem mock: stages to host synchronously (the
+    checkpointer's donation-safety contract), then commits through the real checkpointer
     on a background thread after ``delay`` seconds."""
 
     def __init__(self, inner, delay: float):
@@ -161,17 +162,57 @@ def test_async_save_overlaps_training(tmp_path):
 
 
 def test_meta_and_index_writes_gated_on_process_zero(tmp_path, monkeypatch):
-    """Non-zero processes participate in the orbax save but never write
-    meta.json/index.json (shared-FS race, round-2 VERDICT #4)."""
+    """Non-zero processes take part in staging but never write the state
+    tree, meta.json or index.json (shared-FS race, round-2 VERDICT #4)."""
     import os
 
-    from asr_chinese_e2e_tpu.train import checkpoint as ckpt_mod
+    from asr_chinese_e2e.train import checkpoint as ckpt_mod
 
     mgr, train_step, state, args, cfg = setup(tmp_path)
     monkeypatch.setattr(ckpt_mod, "_is_proc0", lambda: False)
     state, _ = train_step(state, *args, jax.random.PRNGKey(0))
     path = mgr.save(state, epoch=0, metric=2.0)
     mgr.wait()
-    assert os.path.isdir(os.path.join(path, "state"))  # orbax tree written
+    assert not os.path.exists(os.path.join(path, "state"))
     assert not os.path.exists(os.path.join(path, "meta.json"))
     assert not os.path.exists(str(tmp_path / "ckpt" / "index.json"))
+
+
+def test_npz_checkpointer_roundtrips_dtypes_and_structure(tmp_path):
+    """bfloat16 leaves (stored bit-cast, npz has no bfloat16) come back
+    bit-exact; without a template the tree comes back as nested dicts."""
+    from asr_chinese_e2e.train.checkpoint import NpzCheckpointer
+
+    tree = {
+        "w": jnp.asarray(np.random.RandomState(0).randn(3, 4), jnp.bfloat16),
+        "inner": {"step": jnp.asarray(7, jnp.int32), "x": jnp.ones((2,))},
+    }
+    ck = NpzCheckpointer()
+    path = str(tmp_path / "state")
+    ck.save(path, tree)
+    ck.wait_until_finished()
+    back = ck.restore(path, tree)
+    assert back["w"].dtype == jnp.bfloat16
+    for a, b in zip(jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    raw = ck.restore(path)
+    assert set(raw) == {"w", "inner"} and set(raw["inner"]) == {"step", "x"}
+    assert int(raw["inner"]["step"]) == 7
+
+
+def test_npz_checkpointer_commit_is_atomic_and_errors_surface(tmp_path):
+    """The tree is written to ``state.tmp`` and renamed when complete; a
+    failed background write is raised by the next wait."""
+    from asr_chinese_e2e.train.checkpoint import NpzCheckpointer
+
+    ck = NpzCheckpointer()
+    path = str(tmp_path / "state")
+    ck.save(path, {"a": jnp.zeros((2,))})
+    ck.wait_until_finished()
+    import os
+
+    assert os.path.isdir(path) and not os.path.exists(path + ".tmp")
+    (tmp_path / "blocker").write_text("")  # a file where a directory must go
+    ck.save(str(tmp_path / "blocker" / "state"), {"a": jnp.zeros((2,))})
+    with pytest.raises(OSError):
+        ck.wait_until_finished()

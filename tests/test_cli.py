@@ -8,7 +8,7 @@ import pytest
 
 import main as train_cli
 import recognize as rec_cli
-from asr_chinese_e2e_tpu.utils.cli import coerce, parse_kwargs
+from asr_chinese_e2e.utils.cli import coerce, parse_kwargs
 
 from tests.test_manifest import make_tree
 
@@ -185,7 +185,7 @@ def test_batched_bucket_static_shapes(tmp_path):
 def test_recognize_mixed_lengths_bucketed(prepared, tmp_path):
     """recognize() end-to-end over a mixed-length manifest: correct per-utt
     outputs (pad rows dropped) and one jit entry per bucket shape."""
-    from asr_chinese_e2e_tpu.data.manifest import write_manifest
+    from asr_chinese_e2e.data.manifest import write_manifest
     from tests.test_manifest import write_wav
 
     tmp, out, exp_dir = prepared
@@ -214,7 +214,7 @@ def test_recognize_distributed_beam(prepared, tmp_path):
     """recognize --mesh_data runs the data-parallel beam pipeline on an
     attention model; output must match the unsharded run
     utterance-for-utterance."""
-    from asr_chinese_e2e_tpu.data.manifest import write_manifest
+    from asr_chinese_e2e.data.manifest import write_manifest
     from tests.test_manifest import write_wav
 
     tmp, out, _ = prepared

@@ -1,4 +1,4 @@
-from asr_chinese_e2e_tpu.core.config import Config, resolve_config
+from asr_chinese_e2e.core.config import Config, resolve_config
 
 
 def test_three_tier_precedence():

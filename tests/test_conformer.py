@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_chinese_e2e_tpu.core.config import Config
-from asr_chinese_e2e_tpu.core.registry import get_model
-from asr_chinese_e2e_tpu.data.features import FeatureConfig
-from asr_chinese_e2e_tpu.models.layers import ConvModule
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer, default_config
+from asr_chinese_e2e.core.config import Config
+from asr_chinese_e2e.core.registry import get_model
+from asr_chinese_e2e.data.features import FeatureConfig
+from asr_chinese_e2e.models.layers import ConvModule
+from asr_chinese_e2e.models.transformer import SpeechTransformer, default_config
 
 
 def tiny_conformer_cfg(**kw) -> Config:
@@ -75,7 +75,7 @@ def test_conformer_forward_and_pad_invariance():
 
 
 def test_conformer_grads_flow():
-    from asr_chinese_e2e_tpu.losses import model_loss
+    from asr_chinese_e2e.losses import model_loss
 
     cfg = tiny_conformer_cfg()
     model = SpeechTransformer(cfg, vocab_size=20)
@@ -111,19 +111,19 @@ def test_conformer_registered():
 
 @pytest.mark.slow
 def test_conformer_learns_tone_language(tmp_path):
-    from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-    from asr_chinese_e2e_tpu.data.features import parse_batch
-    from asr_chinese_e2e_tpu.decode.cer import corpus_cer
-    from asr_chinese_e2e_tpu.decode.greedy import (
+    from asr_chinese_e2e.data.batching import BucketedLoader
+    from asr_chinese_e2e.data.features import parse_batch
+    from asr_chinese_e2e.decode.cer import corpus_cer
+    from asr_chinese_e2e.decode.greedy import (
         attention_greedy_decode,
         ctc_greedy_decode,
         tokens_to_ids,
     )
-    from asr_chinese_e2e_tpu.train.optimizer import (
+    from asr_chinese_e2e.train.optimizer import (
         default_train_config,
         make_optimizer,
     )
-    from asr_chinese_e2e_tpu.train.train_step import make_step_fns
+    from asr_chinese_e2e.train.train_step import make_step_fns
     from tests.test_learning import make_corpus
 
     mpath, vocab = make_corpus(tmp_path, n=48, seed=4)

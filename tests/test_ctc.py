@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from asr_chinese_e2e_tpu.ops.ctc import ctc_loss, extend_labels
+from asr_chinese_e2e.ops.ctc import ctc_loss, extend_labels
 
 
 def numpy_ctc_oracle(log_probs, labels, blank=0):

@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.decode.ctc_prefix import ctc_prefix_beam_search
-from asr_chinese_e2e_tpu.decode.ctc_prefix_device import (
+from asr_chinese_e2e.decode.ctc_prefix import ctc_prefix_beam_search
+from asr_chinese_e2e.decode.ctc_prefix_device import (
     ctc_prefix_beam_device,
     device_nbest_to_lists,
 )
-from asr_chinese_e2e_tpu.decode.greedy import ctc_greedy_decode
+from asr_chinese_e2e.decode.greedy import ctc_greedy_decode
 
 
 def peaky_log_probs(seed, B=3, T=25, C=12, sharpness=3.0):
@@ -68,7 +68,7 @@ def test_variable_lengths_freeze():
 
 
 def test_rescore_integration():
-    from asr_chinese_e2e_tpu.decode.ctc_prefix import attention_rescore
+    from asr_chinese_e2e.decode.ctc_prefix import attention_rescore
     from tests.test_decode import setup_attention_model
 
     model, params, enc_out, enc_lens = setup_attention_model()

@@ -7,19 +7,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.vocab import BLANK_ID, BOS_ID, EOS_ID
-from asr_chinese_e2e_tpu.decode.beam import beam_search
-from asr_chinese_e2e_tpu.decode.ctc_prefix import (
+from asr_chinese_e2e.data.vocab import BLANK_ID, BOS_ID, EOS_ID
+from asr_chinese_e2e.decode.beam import beam_search
+from asr_chinese_e2e.decode.ctc_prefix import (
     attention_rescore,
     ctc_prefix_beam_batch,
     ctc_prefix_beam_search,
 )
-from asr_chinese_e2e_tpu.decode.greedy import (
+from asr_chinese_e2e.decode.greedy import (
     attention_greedy_decode,
     ctc_greedy_decode,
     tokens_to_ids,
 )
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer
+from asr_chinese_e2e.models.transformer import SpeechTransformer
 
 from tests.test_transformer import VOCAB, init_model, make_batch, tiny_cfg
 

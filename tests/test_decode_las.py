@@ -4,9 +4,9 @@ reordering must handle carries/alignment, not just KV tensors)."""
 import jax
 import numpy as np
 
-from asr_chinese_e2e_tpu.decode.beam import beam_search
-from asr_chinese_e2e_tpu.decode.greedy import attention_greedy_decode, tokens_to_ids
-from asr_chinese_e2e_tpu.models.rnn import LAS, default_las_config
+from asr_chinese_e2e.decode.beam import beam_search
+from asr_chinese_e2e.decode.greedy import attention_greedy_decode, tokens_to_ids
+from asr_chinese_e2e.models.rnn import LAS, default_las_config
 
 from tests.test_rnn_models import VOCAB, make_batch
 

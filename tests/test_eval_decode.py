@@ -12,7 +12,7 @@ def test_eval_decode_ctc_greedy(corpus, tmp_path):  # noqa: F811
     # construction time)
     trainer2, _ = make_trainer(corpus, str(tmp_path / "exp2"))
     trainer2.cfg.build(eval_decode="ctc_greedy")
-    from asr_chinese_e2e_tpu.train.trainer import Trainer
+    from asr_chinese_e2e.train.trainer import Trainer
 
     t = Trainer(
         trainer2.model, trainer2.tx,
@@ -33,17 +33,17 @@ def test_eval_decode_ctc_greedy(corpus, tmp_path):  # noqa: F811
 def test_eval_decode_beam_and_joint(corpus, tmp_path):  # noqa: F811
     """The trainer's decoded-CER eval also runs with the beam and joint
     one-pass CTC/attention modes (needs a hybrid encoder-decoder)."""
-    from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig
-    from asr_chinese_e2e_tpu.models.transformer import (
+    from asr_chinese_e2e.data.batching import BucketedLoader
+    from asr_chinese_e2e.data.features import FeatureConfig
+    from asr_chinese_e2e.models.transformer import (
         SpeechTransformer,
         default_config,
     )
-    from asr_chinese_e2e_tpu.train.optimizer import (
+    from asr_chinese_e2e.train.optimizer import (
         default_train_config,
         make_optimizer,
     )
-    from asr_chinese_e2e_tpu.train.trainer import Trainer
+    from asr_chinese_e2e.train.trainer import Trainer
 
     mpath, vocab, _ = corpus
     feat_cfg = FeatureConfig(n_mels=20)

@@ -13,7 +13,7 @@ import subprocess
 import sys
 import tarfile
 
-from asr_chinese_e2e_tpu.data.extract import extract_aishell1
+from asr_chinese_e2e.data.extract import extract_aishell1
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

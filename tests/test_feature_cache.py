@@ -5,8 +5,8 @@ import os
 import numpy as np
 
 import preprocess
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-from asr_chinese_e2e_tpu.data.features import FeatureConfig
+from asr_chinese_e2e.data.batching import BucketedLoader
+from asr_chinese_e2e.data.features import FeatureConfig
 
 from tests.test_batching import setup_data
 
@@ -36,9 +36,9 @@ def test_feature_predump_and_cached_loader(tmp_path):
     # cached features equal on-the-fly features
     import jax.numpy as jnp
 
-    from asr_chinese_e2e_tpu.data.batching import load_wav
-    from asr_chinese_e2e_tpu.data.features import parse_batch
-    from asr_chinese_e2e_tpu.data.manifest import read_manifest
+    from asr_chinese_e2e.data.batching import load_wav
+    from asr_chinese_e2e.data.features import parse_batch
+    from asr_chinese_e2e.data.manifest import read_manifest
 
     rec = read_manifest(cached_manifest)[0]
     wave = load_wav(rec["wave"])

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.features import (
+from asr_chinese_e2e.data.features import (
     FeatureConfig,
     cmvn_per_dim,
     delta_features,
@@ -41,7 +41,7 @@ def test_parse_batch_with_deltas_dim():
 
 
 def test_banded_attention_restricts_context():
-    from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer
+    from asr_chinese_e2e.models.transformer import SpeechTransformer
     from tests.test_transformer import init_model, make_batch, tiny_cfg
 
     cfg = tiny_cfg(dropout_rate=0.0, ctc_weight=0.3, attention_band=2)
@@ -68,7 +68,7 @@ def test_dct_matrix_matches_scipy():
     (the librosa MFCC convention, processor.py:119-139)."""
     from scipy.fft import dct as scipy_dct
 
-    from asr_chinese_e2e_tpu.data.features import dct_matrix
+    from asr_chinese_e2e.data.features import dct_matrix
 
     rng = np.random.RandomState(0)
     x = rng.randn(3, 7, 20).astype(np.float32)
@@ -82,7 +82,7 @@ def test_parse_batch_mfcc_pipeline():
     advertised feature_dim matches the produced shape."""
     from scipy.fft import dct as scipy_dct
 
-    from asr_chinese_e2e_tpu.data.features import log_mel_spectrogram
+    from asr_chinese_e2e.data.features import log_mel_spectrogram
 
     cfg = FeatureConfig(n_mels=20, feature_type="mfcc", n_mfcc=13)
     assert cfg.feature_dim == 13 * 4
@@ -94,7 +94,7 @@ def test_parse_batch_mfcc_pipeline():
     # the cepstra entering CMVN must be scipy's MFCC of our log-mel
     logmel = np.asarray(log_mel_spectrogram(wave, cfg))
     want_cep = scipy_dct(logmel, type=2, norm="ortho", axis=-1)[..., :13]
-    from asr_chinese_e2e_tpu.data.features import cmvn, lfr_stack
+    from asr_chinese_e2e.data.features import cmvn, lfr_stack
 
     flens = cfg.num_frames(lens)
     want, want_lens = lfr_stack(cmvn(jnp.asarray(want_cep), flens), flens, cfg)
@@ -109,14 +109,14 @@ def test_feature_config_from_roundtrips_every_knob():
     features."""
     import dataclasses
 
-    from asr_chinese_e2e_tpu.core.config import Config
-    from asr_chinese_e2e_tpu.utils.experiment import feature_config_from
+    from asr_chinese_e2e.core.config import Config
+    from asr_chinese_e2e.utils.experiment import feature_config_from
 
     overrides = dict(
         sample_rate=8000, n_mels=24, lfr_m=3, lfr_n=2,
         feature_type="mfcc", n_mfcc=11, cmvn_mode="fixed",
         cmvn_mean=-7.5, cmvn_std=3.25, use_delta=True,
-        use_delta_delta=True, fbank_impl="pallas",
+        use_delta_delta=True,
         freq_mask_param=10, time_mask_param=20, num_freq_masks=2,
         num_time_masks=3, num_time_warps=1, time_warp_param=9,
     )

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_chinese_e2e_tpu.data.features import (
+from asr_chinese_e2e.data.features import (
     FeatureConfig,
     cmvn,
     lfr_stack,
@@ -130,7 +130,7 @@ def test_spec_augment_shapes_and_fill():
 def test_spec_mask_draws_are_uniform():
     """The start/width draws must be exactly uniform (round-2 code used
     `randint(0, 1<<30) % hi`, which is modulo-biased)."""
-    from asr_chinese_e2e_tpu.data.features import _spec_mask
+    from asr_chinese_e2e.data.features import _spec_mask
 
     b, dim, param = 4096, 7, 2  # small dim so chi-square has power
     # param=2 -> cap in {0,1}; with cap=1, width in {0}, so masks are empty —

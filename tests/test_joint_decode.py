@@ -6,9 +6,9 @@ import itertools
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.vocab import BLANK_ID, EOS_ID
-from asr_chinese_e2e_tpu.decode.beam import beam_search
-from asr_chinese_e2e_tpu.decode.joint import (
+from asr_chinese_e2e.data.vocab import BLANK_ID, EOS_ID
+from asr_chinese_e2e.decode.beam import beam_search
+from asr_chinese_e2e.decode.joint import (
     LOG_ZERO,
     _ctc_candidate_scores,
     _ctc_selected_registers,

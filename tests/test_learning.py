@@ -14,15 +14,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-from asr_chinese_e2e_tpu.data.manifest import write_manifest
-from asr_chinese_e2e_tpu.data.vocab import Vocab
-from asr_chinese_e2e_tpu.decode.cer import corpus_cer
-from asr_chinese_e2e_tpu.decode.greedy import ctc_greedy_decode
-from asr_chinese_e2e_tpu.models.rnn import BiLSTMCTC, default_ctc_config
-from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
-from asr_chinese_e2e_tpu.train.train_step import make_step_fns
+from asr_chinese_e2e.data.batching import BucketedLoader
+from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+from asr_chinese_e2e.data.manifest import write_manifest
+from asr_chinese_e2e.data.vocab import Vocab
+from asr_chinese_e2e.decode.cer import corpus_cer
+from asr_chinese_e2e.decode.greedy import ctc_greedy_decode
+from asr_chinese_e2e.models.rnn import BiLSTMCTC, default_ctc_config
+from asr_chinese_e2e.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e.train.train_step import make_step_fns
 
 SR = 16000
 CHARS = "一二三四五六"

@@ -10,14 +10,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-from asr_chinese_e2e_tpu.decode.beam import beam_search
-from asr_chinese_e2e_tpu.decode.cer import corpus_cer
-from asr_chinese_e2e_tpu.decode.greedy import attention_greedy_decode, tokens_to_ids
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer, default_config
-from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
-from asr_chinese_e2e_tpu.train.train_step import make_step_fns
+from asr_chinese_e2e.data.batching import BucketedLoader
+from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+from asr_chinese_e2e.decode.beam import beam_search
+from asr_chinese_e2e.decode.cer import corpus_cer
+from asr_chinese_e2e.decode.greedy import attention_greedy_decode, tokens_to_ids
+from asr_chinese_e2e.models.transformer import SpeechTransformer, default_config
+from asr_chinese_e2e.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e.train.train_step import make_step_fns
 
 from tests.test_learning import make_corpus
 
@@ -63,7 +63,7 @@ def test_hybrid_learns_and_beam_decodes(tmp_path):
             break
     assert loss is not None and loss < 1.0, f"hybrid loss did not converge: {loss}"
 
-    from asr_chinese_e2e_tpu.decode.joint import joint_beam_search
+    from asr_chinese_e2e.decode.joint import joint_beam_search
 
     hyps_greedy, hyps_beam, hyps_joint, refs = [], [], [], []
     for b in loader.epoch(0):

@@ -12,14 +12,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader, load_wav
-from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-from asr_chinese_e2e_tpu.decode.cer import corpus_cer
-from asr_chinese_e2e_tpu.decode.greedy import ctc_greedy_decode
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer, default_config
-from asr_chinese_e2e_tpu.stream import StreamingRecognizer
-from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
-from asr_chinese_e2e_tpu.train.train_step import make_step_fns
+from asr_chinese_e2e.data.batching import BucketedLoader, load_wav
+from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+from asr_chinese_e2e.decode.cer import corpus_cer
+from asr_chinese_e2e.decode.greedy import ctc_greedy_decode
+from asr_chinese_e2e.models.transformer import SpeechTransformer, default_config
+from asr_chinese_e2e.stream import StreamingRecognizer
+from asr_chinese_e2e.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e.train.train_step import make_step_fns
 
 from tests.test_learning import make_corpus
 

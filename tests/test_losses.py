@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.losses import hybrid_loss, smoothed_cross_entropy
+from asr_chinese_e2e.losses import hybrid_loss, smoothed_cross_entropy
 
 
 def oracle_ce(logits, gold, smoothing):

@@ -4,7 +4,7 @@ import wave as wavelib
 
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.manifest import (
+from asr_chinese_e2e.data.manifest import (
     AiShell1Collector,
     read_manifest,
 )

@@ -10,7 +10,7 @@ can only fake:
 - equal batch counts on every host (SPMD lockstep);
 - ONE writer of ``index.json`` / ``meta.json`` / ``scalars.jsonl``
   (process-0 gating) on the shared filesystem;
-- orbax async save + restore participating from both processes.
+- async save (process 0 writes) + restore on both processes.
 """
 
 import json
@@ -34,7 +34,7 @@ def _free_port() -> int:
 
 
 def test_two_process_train_resume(tmp_path):
-    from asr_chinese_e2e_tpu.utils.synth import make_synth_corpus
+    from asr_chinese_e2e.utils.synth import make_synth_corpus
 
     paths = make_synth_corpus(
         str(tmp_path / "corpus"), n_train=64, n_dev=8, n_test=8,

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from asr_chinese_e2e_tpu.data import native
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader, load_wav
+from asr_chinese_e2e.data import native
+from asr_chinese_e2e.data.batching import BucketedLoader, load_wav
 
 from tests.test_batching import setup_data
 from tests.test_manifest import write_wav
@@ -95,7 +95,7 @@ def test_int16_wire_matches_float_path(tmp_path):
     bit-exact vs the float32 path for mono audio."""
     import jax.numpy as jnp
 
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
+    from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
 
     mpath, vocab = setup_data(tmp_path)
     f = BucketedLoader(

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.core.registry import available_models, get_model
-from asr_chinese_e2e_tpu.models.rnn import (
+from asr_chinese_e2e.core.registry import available_models, get_model
+from asr_chinese_e2e.models.rnn import (
     LAS,
     BiLSTMCTC,
     default_ctc_config,
@@ -63,7 +63,7 @@ def test_las_forward_and_step_consistency():
     # step path reproduces teacher-forced logits given the same prefix
     enc_out, enc_lens = model.apply(params, feats, feat_lens, method="encode")
     state = model.apply(params, enc_out, enc_lens, method="init_decode_state")
-    from asr_chinese_e2e_tpu.models.transformer import preprocess_targets
+    from asr_chinese_e2e.models.transformer import preprocess_targets
 
     ys_in, _ = preprocess_targets(labels, label_lens)
     want = np.asarray(jax.nn.log_softmax(out["logits"], axis=-1))
@@ -100,7 +100,7 @@ def test_las_scan_matches_unroll():
     """The lifted-scan teacher-forced decoder must produce the same params
     tree and bit-matching logits as the Python-unrolled oracle, and its
     lowered HLO must stay O(1) in target length (the unroll is O(L))."""
-    from asr_chinese_e2e_tpu.models.rnn import LAS, default_las_config
+    from asr_chinese_e2e.models.rnn import LAS, default_las_config
 
     def build(unroll):
         cfg = default_las_config().build(

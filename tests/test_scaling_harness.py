@@ -24,7 +24,6 @@ def test_scaling_sweep_on_virtual_mesh(capsys):
         num_decoder_layers=1,
         dtype="float32",
         attn_impl="xla",
-        fbank_impl="xla",
     )
     table = result["table"]
     assert [r["n_chips"] for r in table] == [1, 2, 4]

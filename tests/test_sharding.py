@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from asr_chinese_e2e_tpu.data.features import FeatureConfig
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer
-from asr_chinese_e2e_tpu.parallel.sharding import (
+from asr_chinese_e2e.data.features import FeatureConfig
+from asr_chinese_e2e.models.transformer import SpeechTransformer
+from asr_chinese_e2e.parallel.sharding import (
     DATA_AXIS,
     MODEL_AXIS,
     batch_sharding,
@@ -19,8 +19,8 @@ from asr_chinese_e2e_tpu.parallel.sharding import (
     param_spec,
     replicated,
 )
-from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
-from asr_chinese_e2e_tpu.train.train_step import make_step_fns
+from asr_chinese_e2e.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e.train.train_step import make_step_fns
 
 from tests.test_train_step import VOCAB, make_raw_batch
 from tests.test_transformer import tiny_cfg
@@ -115,7 +115,7 @@ def test_tp_forward_matches_replicated():
 def test_psum_of_shard_losses_equals_global():
     """Collective correctness: mean of per-shard CE losses == global CE
     (equal shard sizes)."""
-    from asr_chinese_e2e_tpu.losses import smoothed_cross_entropy
+    from asr_chinese_e2e.losses import smoothed_cross_entropy
     from jax import shard_map
 
     mesh = make_mesh()
@@ -140,56 +140,47 @@ def test_psum_of_shard_losses_equals_global():
     )
 
 
-def test_fused_attention_sharded_matches_unsharded():
-    """The shard_map-wrapped fused attention kernel (data x model sharding
-    of the (B, H, T, D) grid) must match the unsharded kernel exactly at
-    dropout 0 (it needs no communication — per-(b, h) independence)."""
-    from asr_chinese_e2e_tpu.ops.fused_attention import (
-        fused_attention,
-        fused_attention_sharded,
+def _ctc_kernel_step(mesh):
+    """One train step with the CTC loss through the Pallas kernel (in the
+    interpreter), unsharded or on ``mesh``'s data axis."""
+    from asr_chinese_e2e.parallel.context import active_mesh
+
+    cfg = tiny_cfg(dropout_rate=0.0, ctc_weight=0.5)
+    tcfg = default_train_config().combine(cfg).build(ctc_impl="pallas_interpret")
+    model = SpeechTransformer(cfg, VOCAB)
+    init_fn, train_step, _ = make_step_fns(
+        model, make_optimizer(tcfg, cfg.d_model), FeatureConfig(), tcfg,
+        raw_features=True,
     )
+    batch = make_raw_batch(b=4)
+    state = init_fn(jax.random.PRNGKey(0), batch)
+    args = _args(batch)
+    if mesh is not None:
+        state = jax.device_put(state, replicated(mesh))
+        args = _args(batch, batch_sharding(mesh))
+    with active_mesh(mesh):
+        return train_step(state, *args, jax.random.PRNGKey(1))
 
-    rng = np.random.RandomState(0)
-    b, h, t, d = 8, 4, 16, 8
-    q, k, v = (
-        jnp.asarray(rng.randn(b, h, t, d).astype(np.float32)) for _ in range(3)
+
+def test_ctc_kernel_train_step_on_data_mesh_matches_unsharded():
+    """Under a 4-way data mesh the CTC kernel runs per shard (shard_map
+    over ``data``); the step's losses equal the unsharded step's."""
+    _, m1 = _ctc_kernel_step(None)
+    _, m2 = _ctc_kernel_step(make_mesh(data=4, devices=jax.devices()[:4]))
+    for k in ("loss", "ctc_loss", "ce_loss"):
+        np.testing.assert_allclose(float(m1[k]), float(m2[k]), rtol=1e-5)
+
+
+def test_ctc_kernel_train_step_on_data_mesh_updates_match():
+    s1, m1 = _ctc_kernel_step(None)
+    s2, m2 = _ctc_kernel_step(make_mesh(data=4, devices=jax.devices()[:4]))
+    np.testing.assert_allclose(
+        float(m1["grad_norm"]), float(m2["grad_norm"]), rtol=1e-5
     )
-    lengths = jnp.asarray(rng.randint(4, t + 1, size=(b,)), jnp.int32)
-    seed = jnp.zeros((), jnp.int32)
-    want = fused_attention(q, k, v, lengths, seed, 0.5, 0.0)
-    mesh = make_mesh(data=4, model=2)
-    got = fused_attention_sharded(mesh, q, k, v, lengths, seed, 0.5, 0.0)
-    np.testing.assert_allclose(np.asarray(want), np.asarray(got), atol=1e-6)
-
-
-@pytest.mark.slow
-def test_fused_attention_sharded_grads_match():
-    from asr_chinese_e2e_tpu.ops.fused_attention import (
-        fused_attention,
-        fused_attention_sharded,
-    )
-
-    rng = np.random.RandomState(1)
-    b, h, t, d = 4, 2, 8, 8
-    q, k, v = (
-        jnp.asarray(rng.randn(b, h, t, d).astype(np.float32)) for _ in range(3)
-    )
-    lengths = jnp.full((b,), t, jnp.int32)
-    seed = jnp.zeros((), jnp.int32)
-    mesh = make_mesh(data=4, model=2)
-
-    def loss_plain(q, k, v):
-        return jnp.sum(fused_attention(q, k, v, lengths, seed, 0.5, 0.0) ** 2)
-
-    def loss_sharded(q, k, v):
-        return jnp.sum(
-            fused_attention_sharded(mesh, q, k, v, lengths, seed, 0.5, 0.0) ** 2
-        )
-
-    g1 = jax.grad(loss_plain, argnums=(0, 1, 2))(q, k, v)
-    g2 = jax.grad(loss_sharded, argnums=(0, 1, 2))(q, k, v)
-    for a, b_ in zip(g1, g2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b_), atol=1e-5)
+    for a, b in zip(
+        jax.tree_util.tree_leaves(s1.params), jax.tree_util.tree_leaves(s2.params)
+    ):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
 
 
 @pytest.mark.slow
@@ -202,7 +193,7 @@ def test_graft_dryrun_multichip():
 def test_state_shardings_mirror_adam_moments():
     """state_shardings must TP-shard params AND their Adam moments
     identically, replicating scalar counters."""
-    from asr_chinese_e2e_tpu.parallel.sharding import state_shardings
+    from asr_chinese_e2e.parallel.sharding import state_shardings
 
     cfg = tiny_cfg(dropout_rate=0.0)
     tcfg = default_train_config().combine(cfg)
@@ -246,10 +237,10 @@ def test_trainer_tp_shards_params_and_matches_replicated():
     import os
     import tempfile
 
-    from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-    from asr_chinese_e2e_tpu.data.manifest import write_manifest
-    from asr_chinese_e2e_tpu.data.vocab import Vocab
-    from asr_chinese_e2e_tpu.train.trainer import Trainer
+    from asr_chinese_e2e.data.batching import BucketedLoader
+    from asr_chinese_e2e.data.manifest import write_manifest
+    from asr_chinese_e2e.data.vocab import Vocab
+    from asr_chinese_e2e.train.trainer import Trainer
     from tests.test_manifest import write_wav
 
     tmp = tempfile.mkdtemp()

@@ -9,10 +9,10 @@ pipeline, so this is an exact-equivalence test, no training needed).
 import numpy as np
 import pytest
 
-from asr_chinese_e2e_tpu.data.features import FeatureConfig
-from asr_chinese_e2e_tpu.data.vocab import Vocab
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer
-from asr_chinese_e2e_tpu.stream import EnergyGate, Event, StreamingRecognizer
+from asr_chinese_e2e.data.features import FeatureConfig
+from asr_chinese_e2e.data.vocab import Vocab
+from asr_chinese_e2e.models.transformer import SpeechTransformer
+from asr_chinese_e2e.stream import EnergyGate, Event, StreamingRecognizer
 
 from tests.test_transformer import tiny_cfg
 
@@ -75,7 +75,7 @@ def tiny_recognizer():
     cfg.build(input_dim=feat_cfg.feature_dim)
     model = SpeechTransformer(cfg, vocab.vocab_size)
     wave = np.zeros((1, SR), np.float32)
-    from asr_chinese_e2e_tpu.data.features import parse_batch
+    from asr_chinese_e2e.data.features import parse_batch
 
     feats, feat_lens = parse_batch(wave, np.asarray([SR], np.int32), feat_cfg)
     params = model.init(
@@ -117,8 +117,8 @@ def test_streaming_finals_match_offline(tiny_recognizer, mode):
 
 
 def test_wav_chunks_roundtrip(tmp_path):
-    from asr_chinese_e2e_tpu.stream import wav_chunks
-    from asr_chinese_e2e_tpu.utils.synth import write_wav16
+    from asr_chinese_e2e.stream import wav_chunks
+    from asr_chinese_e2e.utils.synth import write_wav16
 
     x = tone(0.5, amp=0.3)
     p = str(tmp_path / "t.wav")
@@ -135,7 +135,7 @@ def test_reset_stream_isolates_streams(tiny_recognizer):
     into the next segment."""
     import numpy as np
 
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
+    from asr_chinese_e2e.stream import StreamingRecognizer
 
     model, params, vocab, feat_cfg = tiny_recognizer
     sr = feat_cfg.sample_rate

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer
+from asr_chinese_e2e.models.transformer import SpeechTransformer
 
 from tests.test_transformer import VOCAB, tiny_cfg
 
@@ -97,8 +97,8 @@ def test_band_bounds_receptive_field():
 @pytest.fixture(scope="module")
 def stream_recognizer_parts():
     """Tiny streaming-capable model: causal band + CTC head + fixed CMVN."""
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig, parse_batch
-    from asr_chinese_e2e_tpu.data.vocab import Vocab
+    from asr_chinese_e2e.data.features import FeatureConfig, parse_batch
+    from asr_chinese_e2e.data.vocab import Vocab
 
     vocab = Vocab()
     vocab.consume_sentence("".join(chr(0x4E00 + i) for i in range(8)))
@@ -123,8 +123,8 @@ def test_incremental_pipeline_matches_offline(stream_recognizer_parts):
     full encode of the BUCKETED wave (the serving path's featurization —
     segments are zero-padded to their duration bucket before framing),
     down to the LFR tail clipping."""
-    from asr_chinese_e2e_tpu.data.features import parse_batch
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
+    from asr_chinese_e2e.data.features import parse_batch
+    from asr_chinese_e2e.stream import StreamingRecognizer
 
     model, params, vocab, feat_cfg = stream_recognizer_parts
     rec = StreamingRecognizer(
@@ -160,7 +160,7 @@ def test_incremental_pipeline_matches_offline(stream_recognizer_parts):
 def test_incremental_recognizer_end_to_end(stream_recognizer_parts, mode):
     """Full gate-driven streaming with the incremental path: finals match
     the offline decode of the same segments; partials flow."""
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
+    from asr_chinese_e2e.stream import StreamingRecognizer
 
     model, params, vocab, feat_cfg = stream_recognizer_parts
     sr = feat_cfg.sample_rate
@@ -204,8 +204,8 @@ def test_incremental_recognizer_end_to_end(stream_recognizer_parts, mode):
 
 
 def test_incremental_requires_streaming_model(stream_recognizer_parts):
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
+    from asr_chinese_e2e.data.features import FeatureConfig
+    from asr_chinese_e2e.stream import StreamingRecognizer
 
     model, params, vocab, _ = stream_recognizer_parts
     offline_feat = FeatureConfig(n_mels=20)  # per-utterance CMVN
@@ -215,18 +215,15 @@ def test_incremental_requires_streaming_model(stream_recognizer_parts):
         )
 
 
-def test_fused_impl_falls_back_for_band():
-    """attn_impl='fused' must not silently drop the banded/causal pattern.
-    Since round 5 the fused kernel takes the pattern IN KERNEL
-    (fused_pattern) rather than falling back to xla — outputs must still
-    equal the xla bias path exactly."""
+def test_ring_impl_keeps_band_pattern():
+    """attn_impl='ring' has no banded mask, so banded/causal encoders must
+    keep the XLA bias path: outputs equal the xla route exactly."""
     cfg_x = stream_cfg(attn_impl="xla")
     model, params, feats, lens = make_model(cfg_x)
     ref, _ = model.apply(params, feats, lens, method="encode")
-    cfg_f = stream_cfg(attn_impl="fused")
-    model_f = SpeechTransformer(cfg_f, VOCAB)
-    out, _ = model_f.apply(params, feats, lens, method="encode")
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    model_r = SpeechTransformer(stream_cfg(attn_impl="ring"), VOCAB)
+    out, _ = model_r.apply(params, feats, lens, method="encode")
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
 def test_auto_mode_selects_incremental_for_streaming_models(
@@ -234,8 +231,8 @@ def test_auto_mode_selects_incremental_for_streaming_models(
 ):
     """incremental='auto' (the stream_demo default) must pick the
     incremental path exactly when the model/features support it."""
-    from asr_chinese_e2e_tpu.data.features import FeatureConfig
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
+    from asr_chinese_e2e.data.features import FeatureConfig
+    from asr_chinese_e2e.stream import StreamingRecognizer
 
     model, params, vocab, feat_cfg = stream_recognizer_parts
     rec = StreamingRecognizer(model, params, vocab, feat_cfg)
@@ -290,7 +287,7 @@ def test_causal_conformer_is_causal():
 def test_incremental_arg_validated(stream_recognizer_parts):
     """r4 ADVICE #4: typo'd incremental values must raise, not silently
     select the prefix re-encode path."""
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
+    from asr_chinese_e2e.stream import StreamingRecognizer
 
     model, params, vocab, feat_cfg = stream_recognizer_parts
     with pytest.raises(ValueError, match="incremental"):
@@ -305,8 +302,8 @@ def test_incremental_final_matches_offline_midspeech_cut(
     """r4 ADVICE #1: a segment that ends MID-SPEECH (no trailing silence —
     the max_segment_samples cut case) must still featurize bit-comparably
     to the offline bucketed wave on the final flush."""
-    from asr_chinese_e2e_tpu.data.features import parse_batch
-    from asr_chinese_e2e_tpu.stream import StreamingRecognizer
+    from asr_chinese_e2e.data.features import parse_batch
+    from asr_chinese_e2e.stream import StreamingRecognizer
 
     model, params, vocab, feat_cfg = stream_recognizer_parts
     rec = StreamingRecognizer(

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_chinese_e2e_tpu.data.features import FeatureConfig, spec_augment
-from asr_chinese_e2e_tpu.data.timewarp import (
+from asr_chinese_e2e.data.features import FeatureConfig, spec_augment
+from asr_chinese_e2e.data.timewarp import (
     dense_image_warp,
     interpolate_spline,
     sparse_image_warp,

@@ -5,17 +5,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_chinese_e2e_tpu.core.config import Config
-from asr_chinese_e2e_tpu.data.features import FeatureConfig
-from asr_chinese_e2e_tpu.models.rnn import BiLSTMCTC, default_ctc_config
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer
-from asr_chinese_e2e_tpu.train.optimizer import (
+from asr_chinese_e2e.core.config import Config
+from asr_chinese_e2e.data.features import FeatureConfig
+from asr_chinese_e2e.models.rnn import BiLSTMCTC, default_ctc_config
+from asr_chinese_e2e.models.transformer import SpeechTransformer
+from asr_chinese_e2e.train.optimizer import (
     current_lr,
     default_train_config,
     make_optimizer,
     noam_schedule,
 )
-from asr_chinese_e2e_tpu.train.train_step import make_step_fns
+from asr_chinese_e2e.train.train_step import make_step_fns
 
 from tests.test_transformer import tiny_cfg
 
@@ -164,7 +164,7 @@ def test_multi_step_matches_sequential_steps():
     """make_multi_step (k steps per dispatch) must reproduce k sequential
     train_step calls: same RNG streams (the step folds state.step into the
     key itself), same final params, per-step metrics stacked (k,)."""
-    from asr_chinese_e2e_tpu.train.train_step import make_multi_step
+    from asr_chinese_e2e.train.train_step import make_multi_step
 
     k = 3
     cfg = tiny_cfg(dropout_rate=0.1, ctc_weight=0.3)  # dropout ON: RNG parity
@@ -223,7 +223,7 @@ def test_metric_sums_accumulate_on_device():
     and the device key set must stay in sync with what ``model_loss`` +
     ``train_step`` actually emit (``_metric_keys`` mirrors that branch
     logic without running the losses)."""
-    from asr_chinese_e2e_tpu.train.metrics import MetricsAccumulator
+    from asr_chinese_e2e.train.metrics import MetricsAccumulator
 
     cfg = tiny_cfg(dropout_rate=0.0, ctc_weight=0.3)
     model, tx, tcfg = build(cfg, SpeechTransformer)
@@ -265,7 +265,7 @@ def test_noam_peak_guardrail():
     schedules don't."""
     import warnings
 
-    from asr_chinese_e2e_tpu.train.optimizer import noam_peak_lr
+    from asr_chinese_e2e.train.optimizer import noam_peak_lr
 
     hot = default_train_config().build(warmup=150, noam_factor=1.0)
     with pytest.warns(UserWarning, match="Noam peak"):

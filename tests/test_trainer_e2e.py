@@ -9,13 +9,13 @@ import os
 import numpy as np
 import pytest
 
-from asr_chinese_e2e_tpu.data.batching import BucketedLoader
-from asr_chinese_e2e_tpu.data.features import FeatureConfig
-from asr_chinese_e2e_tpu.data.manifest import write_manifest
-from asr_chinese_e2e_tpu.data.vocab import Vocab
-from asr_chinese_e2e_tpu.models.rnn import BiLSTMCTC, default_ctc_config
-from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
-from asr_chinese_e2e_tpu.train.trainer import Trainer
+from asr_chinese_e2e.data.batching import BucketedLoader
+from asr_chinese_e2e.data.features import FeatureConfig
+from asr_chinese_e2e.data.manifest import write_manifest
+from asr_chinese_e2e.data.vocab import Vocab
+from asr_chinese_e2e.models.rnn import BiLSTMCTC, default_ctc_config
+from asr_chinese_e2e.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e.train.trainer import Trainer
 
 from tests.test_manifest import write_wav
 

@@ -3,7 +3,7 @@
 import jax
 import numpy as np
 
-from asr_chinese_e2e_tpu.parallel.sharding import (
+from asr_chinese_e2e.parallel.sharding import (
     initialize_distributed,
     make_mesh,
     put_host_batch,
@@ -30,7 +30,7 @@ def test_put_host_batch_shards_over_data():
 
 def test_trainer_trains_on_mesh(corpus, tmp_path):  # noqa: F811
     trainer2, _ = make_trainer(corpus, str(tmp_path / "exp_mesh"), num_epoch=1)
-    from asr_chinese_e2e_tpu.train.trainer import Trainer
+    from asr_chinese_e2e.train.trainer import Trainer
 
     mesh = make_mesh(data=4)  # batch_size 4 -> 1 utt per data shard
     t = Trainer(

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_chinese_e2e_tpu.core.config import Config
-from asr_chinese_e2e_tpu.data.vocab import BOS_ID, EOS_ID
-from asr_chinese_e2e_tpu.models.transformer import (
+from asr_chinese_e2e.core.config import Config
+from asr_chinese_e2e.data.vocab import BOS_ID, EOS_ID
+from asr_chinese_e2e.models.transformer import (
     SpeechTransformer,
     default_config,
     preprocess_targets,
@@ -134,61 +134,36 @@ def test_bfloat16_compute():
     assert np.isfinite(np.asarray(out["logits"])).all()
 
 
-def test_fused_impl_matches_xla_logits():
-    """attn_impl='fused' (encoder self + decoder causal self + decoder
-    cross through the Pallas kernel) must reproduce the XLA path's
-    teacher-forced logits at every VALID target position (padded rows are
-    zeroed by the kernel, by design)."""
-    cfg_x = tiny_cfg(dropout_rate=0.0, attn_impl="xla")
-    cfg_f = tiny_cfg(dropout_rate=0.0, attn_impl="fused", decoder_attn_impl="fused")
+def test_unknown_attn_impl_raises():
+    """Removed or misspelt routes fail loudly instead of silently taking
+    the XLA path."""
+    cfg = tiny_cfg(attn_impl="fused")
     feats, feat_lens, labels, label_lens = make_batch()
-    m_x = SpeechTransformer(cfg_x, VOCAB)
-    m_f = SpeechTransformer(cfg_f, VOCAB)
-    params = m_x.init(jax.random.PRNGKey(0), feats, feat_lens, labels, label_lens)
-
-    out_x = m_x.apply(params, feats, feat_lens, labels, label_lens)
-    out_f = m_f.apply(params, feats, feat_lens, labels, label_lens)
-    lx, lf = np.asarray(out_x["logits"]), np.asarray(out_f["logits"])
-    for b in range(feats.shape[0]):
-        n = int(label_lens[b]) + 1  # ys_in length = L + 1 (BOS prepended)
-        np.testing.assert_allclose(lf[b, :n], lx[b, :n], rtol=1e-3, atol=1e-3)
-
-
-@pytest.mark.slow
-def test_fused_impl_grads_match_xla():
-    """Hybrid-loss gradients through the fused decoder paths must match
-    the XLA path (dropout off; loss ignores padded positions)."""
-    from asr_chinese_e2e_tpu.losses import model_loss
-
-    cfg_x = tiny_cfg(dropout_rate=0.0, attn_impl="xla")
-    cfg_f = tiny_cfg(dropout_rate=0.0, attn_impl="fused", decoder_attn_impl="fused")
-    feats, feat_lens, labels, label_lens = make_batch()
-    m_x = SpeechTransformer(cfg_x, VOCAB)
-    m_f = SpeechTransformer(cfg_f, VOCAB)
-    params = m_x.init(jax.random.PRNGKey(0), feats, feat_lens, labels, label_lens)
-
-    def loss_fn(model):
-        def f(p):
-            out = model.apply(p, feats, feat_lens, labels, label_lens)
-            loss, _ = model_loss(out, labels, label_lens, 0.3, 0.0, "xla")
-            return loss
-        return f
-
-    g_x = jax.grad(loss_fn(m_x))(params)
-    g_f = jax.grad(loss_fn(m_f))(params)
-    for a, b in zip(
-        jax.tree_util.tree_leaves(g_x), jax.tree_util.tree_leaves(g_f)
-    ):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=5e-3, atol=5e-4
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        SpeechTransformer(cfg, VOCAB).init(
+            jax.random.PRNGKey(0), feats, feat_lens, labels, label_lens
         )
+
+
+def test_ring_impl_without_seq_axis_matches_xla():
+    """attn_impl='ring' with no ``seq`` mesh axis takes the plain masked
+    path: logits equal the XLA route's exactly."""
+    cfg_x = tiny_cfg(dropout_rate=0.0, attn_impl="xla")
+    cfg_r = tiny_cfg(dropout_rate=0.0, attn_impl="ring")
+    feats, feat_lens, labels, label_lens = make_batch()
+    params = SpeechTransformer(cfg_x, VOCAB).init(
+        jax.random.PRNGKey(0), feats, feat_lens, labels, label_lens
+    )
+    out_x = SpeechTransformer(cfg_x, VOCAB).apply(params, feats, feat_lens, labels, label_lens)
+    out_r = SpeechTransformer(cfg_r, VOCAB).apply(params, feats, feat_lens, labels, label_lens)
+    np.testing.assert_array_equal(np.asarray(out_x["logits"]), np.asarray(out_r["logits"]))
 
 
 def test_deepnorm_knob():
     """DeepNorm stabilizer (round-4 VERDICT #1): coeffs follow the DeepNet
     encoder-decoder prescription, v/out/FFN inits are scaled down, and the
     forward stays finite; pre-LN configs ignore the knob entirely."""
-    from asr_chinese_e2e_tpu.models.transformer import deepnorm_coeffs
+    from asr_chinese_e2e.models.transformer import deepnorm_coeffs
 
     cfg = tiny_cfg(norm_type="post", deepnorm=True)
     (ea, eb), (da, db) = deepnorm_coeffs(cfg)
@@ -230,7 +205,7 @@ def test_deepnorm_knob():
 def test_hash_dropout():
     """dropout_impl='hash' (VERDICT r4 #5): mask statistics ~ rate, scaling
     by 1/keep, deterministic under a fixed rng, identity at eval."""
-    from asr_chinese_e2e_tpu.models.layers import ConfigurableDropout
+    from asr_chinese_e2e.models.layers import ConfigurableDropout
 
     x = jnp.ones((64, 128), jnp.float32)
     drop = ConfigurableDropout(0.3, "hash")

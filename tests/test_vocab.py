@@ -1,4 +1,4 @@
-from asr_chinese_e2e_tpu.data.vocab import (
+from asr_chinese_e2e.data.vocab import (
     BOS_ID,
     EOS_ID,
     PAD_ID,
